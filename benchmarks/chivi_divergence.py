@@ -4,7 +4,7 @@ Reproduces the two measurements behind DIM_SCALING.md's "CHIVI does not
 survive past d ~ 10-30" section (recorded in dim_objectives.json and the
 tables there):
 
-* **lr sweep** (`--mode sweep`, TPU or CPU): from a warm KLVI fit at
+* **lr sweep** (`--mode sweep`, GPU or CPU): from a warm KLVI fit at
   d = 100, CHIVI (alpha = 2, n_mc = 800) either hits NaN (first bad
   iteration recorded) or, at lr small enough to stay finite, drifts to a
   non-certifying fit (khat ~ 9) — there is no stable step size.

@@ -6,7 +6,7 @@ viabel/vb.py:202-208).  This study runs the complete validated pipeline —
 full-rank Gaussian KLVI + 1e6-sample bound pass + PSIS — on a conjugate
 linear-regression posterior (analytic truth from
 `diagnostics.compute_posterior_moments`) at d = 10 / 30 / 100 / 300, where
-the family transform is a real (n, d) x (d, d) MXU matmul and the
+the family transform is a real (n, d) x (d, d) matmul and the
 variational parameter vector reaches d(d+3)/2 = 45,450 entries.
 
 Correctness gates per dimension: posterior mean error under the analytic

@@ -1,4 +1,4 @@
-"""Seed-noise quantification for the parity statistics (VERDICT r2 item 2).
+"""Seed-noise quantification for the parity statistics.
 
 Every khat / bound value in benchmarks/RESULTS.md is a Monte Carlo estimate
 of a stochastic optimizer's solution quality — comparing a single run to
@@ -10,8 +10,8 @@ replicated `init_params` — the start axis is the seed axis) and records
 the khat / d2 distributions.
 
 Writes benchmarks/KHAT_NOISE.json; `benchmarks/parity.py` picks it up to
-add the noise column to RESULTS.md.  Run on the TPU (default backend):
-16 pipelines per config fit in one dispatch.
+add the noise column to RESULTS.md.  Runs on the default backend (the
+GPU, in float32): 16 pipelines per config fit in one dispatch.
 
 Usage: python benchmarks/khat_noise.py [--seeds 16] [--quick] [--cpu]
 """
@@ -66,7 +66,7 @@ def run_config(name, model, fam, obj, init, n_iters, n_bound, seeds, ref,
 
 def nm_noise(seeds=16, quick=False, cpu=False):
     """Seed-noise bands for the normal-mixture bounds-only workload
-    (examples/normal_mixture.py; VERDICT r3 item 9: the RESULTS.md rows
+    (examples/normal_mixture.py: the RESULTS.md rows
     carried no band).  No optimizer is involved — each seed draws fresh
     q-samples and re-evaluates the three bound configurations, so the band
     is pure Monte Carlo noise of the bound estimators.
@@ -81,7 +81,7 @@ def nm_noise(seeds=16, quick=False, cpu=False):
     reference's own small-n noise.)
 
     Merges ``nm_*`` configs into the existing KHAT_NOISE.json (the
-    optimizer campaigns recorded on the TPU are left untouched; this
+    optimizer campaigns recorded earlier are left untouched; this
     workload is backend-independent statistics, each config is tagged
     with the backend that produced it).
     """

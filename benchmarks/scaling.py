@@ -1,8 +1,8 @@
-"""Mesh-scaling measurement: the evidence behind the >= 80%-linear-scaling
-north star (BASELINE.md), within what this host can actually measure.
+"""Mesh-scaling measurement on virtual CPU devices and across processes.
 
-Real multi-chip hardware is not attached in this environment, so the
-numbers split into three tiers (benchmarks/SCALING.md interprets them):
+What this script can measure without accelerators splits into three
+tiers (benchmarks/SCALING.md interprets them); the sharded paths on four
+real GPUs are exercised by `python chip_smoke.py --four-gpus`:
 
 1. **Mechanism (virtual pool)** — `sharded_all_bounds` + `psislw_sharded`
    over 1/2/4/8 virtual CPU devices at production sizes.  For each device
@@ -13,26 +13,20 @@ numbers split into three tiers (benchmarks/SCALING.md interprets them):
    D=1 baseline across all of them, so wall-clock "efficiency vs linear"
    on this pool measures core contention, NOT the sharding design.
 2. **Cross-process (2-process Gloo)** — the same program structure that
-   crosses ICI/DCN on a pod, timed at production size via
+   crosses hosts in a multi-host run, timed at production size via
    `benchmarks/scaling_worker.py` (both ranks must report identical
    replicated statistics).
 3. **Collective-payload accounting (static)** — bytes moved by the
    collectives per fused bound+PSIS pass vs bytes of per-device local
-   work, giving the predicted collective fraction on real ICI.
+   work.
 
 Usage:
   python benchmarks/scaling.py [--n 2500000] [--devices 8] [--reps 3]
                                [--two-process] [--nprocs 4] [--json PATH]
-  python benchmarks/scaling.py --tpu-anchor [--n 2500000] [--json PATH]
 
 `--nprocs` widens the cross-process modes beyond the default 2 ranks:
 each rank owns 2 virtual devices, so ``--nprocs 4`` forms an 8-device
 mesh spanning 4 OS-process controllers (tier 2c).
-
-`--tpu-anchor` records tier 4: the same fused pass timed on the real TPU
-chip (1-device mesh, mean-field t AND full-rank t families) — the absolute
-per-chip anchor the tier-3 efficiency prediction multiplies.  It merges
-into an existing --json file so one JSON carries all four tiers.
 """
 import argparse
 import json
@@ -102,149 +96,14 @@ def _collective_accounting(n, d, n_dev, tail_len):
 
     Local work reads/writes O(n/D * d) floats from device memory; the
     collectives move O(1) scalars (stat psums) plus the PSIS tail gather
-    of D * (tail_len + 1) floats.  On a v5e ICI link (~10^11 B/s per
-    direction) vs HBM (~8x10^11 B/s), the predicted collective share of
-    the pass is the byte ratio scaled by the bandwidth ratio.
+    of D * (tail_len + 1) floats.
     """
     f = 4  # f32 bytes
     local_bytes = (n // n_dev) * (d + 1) * f * 3   # draws, scores, weights
     stat_scalars = (2 * 2 + 1) + (d + d * d)       # psums + moment psums
     gather_bytes = n_dev * (tail_len + 1) * f
     coll_bytes = stat_scalars * f + gather_bytes
-    hbm_bw, ici_bw = 8.1e11, 1.0e11
-    t_local = local_bytes / hbm_bw
-    t_coll = coll_bytes / ici_bw * 2  # gather is all-to-all-ish: 2x
-    return dict(local_bytes=local_bytes, collective_bytes=coll_bytes,
-                predicted_collective_fraction=t_coll / (t_local + t_coll))
-
-
-def _collective_accounting_2d(n, d, n_starts, c, s, tail_len, pack_len,
-                              t_opt_s, t_bound_s):
-    """Static accounting for the 2-D fused multistart program
-    (`pipeline._multistart_sharded2d`): K starts partitioned over C chain
-    groups x per-start bounds sharded over S sample shards (N = C*S chips).
-
-    Traffic per device per program:
-
-    * optimizer stage — REPLICATED along the sample axis: zero collective
-      bytes, but each of the S sample-axis members recomputes its chain
-      row's K/C optimizer scans (duplicated compute, modeled below as the
-      Amdahl term: the optimizer's wall-clock does not shrink with S);
-    * bound stage — per start, the same stat psums + S*(tail_len+1) tail
-      gather as the 1-D pass, times the K/C local starts;
-    * epilogue — the host_pack all_gather over the chain axis
-      ((K/C) * pack_len floats sent, K * pack_len received per device).
-
-    Efficiency model (vs K sequential single-chip pipelines on N chips):
-
-        eff(C, S) = (t_opt + t_bound) / (S*t_opt + t_bound + S*t_coll)
-
-    with t_opt / t_bound the measured single-chip stage times (bench.py's
-    real-chip anchors) — the S*t_opt term is the replicated-optimizer
-    cost, the reason a chain-only placement (S=1) is optimal whenever
-    K >= N.
-    """
-    f = 4
-    k_local = n_starts // c
-    local_bytes = k_local * (n // s) * (d + 1) * f * 3
-    stat_scalars = (2 * 2 + 1) + (d + d * d)
-    per_start_coll = stat_scalars * f + s * (tail_len + 1) * f
-    pack_gather = k_local * pack_len * f * c  # all_gather over chain
-    coll_bytes = k_local * per_start_coll + pack_gather
-    hbm_bw, ici_bw = 8.1e11, 1.0e11
-    t_coll = coll_bytes / ici_bw * 2
-    eff = (t_opt_s + t_bound_s) / (s * t_opt_s + t_bound_s + s * t_coll)
-    return dict(n_starts=n_starts, chain=c, sample=s,
-                local_bytes=local_bytes, collective_bytes=coll_bytes,
-                predicted_collective_seconds=t_coll,
-                t_opt_s=t_opt_s, t_bound_s=t_bound_s,
-                predicted_efficiency_vs_linear=eff)
-
-
-def _tpu_anchor(args):
-    """Tier 4: the fused sharded bound+PSIS pass on the real chip (1-device
-    mesh) — the absolute samples/s anchor for the tier-3 projection.  Runs
-    the mean-field t family (the bench.py headline config) and the
-    full-rank t (exercising the pinned-matmul Mahalanobis path)."""
-    import warnings
-
-    import jax
-    import jax.numpy as jnp
-    from viabel_tpu import (mean_field_t_variational_family,
-                            t_variational_family)
-    from viabel_tpu.bounds import MonteCarloErrorWarning
-    from viabel_tpu.models import eight_schools_cp_model
-    from viabel_tpu.parallel import make_mesh
-    warnings.simplefilter('ignore', MonteCarloErrorWarning)
-
-    model = eight_schools_cp_model()
-    key = jax.random.PRNGKey(0)
-    n = args.n
-    dev = jax.devices()[0]
-    print('tpu anchor on {}; n = {:.2g}'.format(dev, float(n)))
-    mesh = make_mesh(axis_names=('sample',), shape=(1,),
-                     devices=[dev])
-    tier = dict(device=str(dev), n=n)
-    for tag, fam in (
-            ('mf_t40', mean_field_t_variational_family(model.dim, 40)),
-            ('full_rank_t100', t_variational_family(model.dim, 100))):
-        vp = jnp.zeros(fam.var_param_dim, dtype=jnp.float32)
-        best = _bound_pass_timer(model, fam, vp, mesh, n, key, args.reps)
-        tier[tag] = dict(best_s=best, samples_per_s=n / best)
-        print('  {:15s}: {:.4f}s best-of-{} ({:.3g} samples/s)'.format(
-            tag, best, args.reps, n / best))
-
-    results = {}
-    if args.json and os.path.exists(args.json):
-        with open(args.json) as f:
-            results = json.load(f)
-    results.setdefault('tiers', {})['tpu_anchor'] = tier
-    if args.json:
-        with open(args.json, 'w') as f:
-            json.dump(results, f, indent=1)
-        print('wrote', args.json)
-    return results
-
-
-def _accounting_2d(args):
-    """Tier 3b: static accounting for the 2-D fused multistart layout at
-    the flagship configuration (K=8 starts, n=2.5e6 bound samples, d=10),
-    swept over (C, S) placements.  `--t-opt`/`--t-bound` default to the
-    real-chip stage anchors bench.py records (10k-iteration KLVI scan and
-    2.5e6-sample bound+PSIS pass).  Merges into --json like --tpu-anchor."""
-    from viabel_tpu.bounds import _STAT_KEYS
-    from viabel_tpu.psis import _tail_len
-    d = 10  # eight-schools-cp (the flagship workload)
-    pack_len = len(_STAT_KEYS) + 3 + d * d
-    tail_len = _tail_len(args.n, 1.0)
-    rows = []
-    print('2-D multistart accounting: K={} starts, n={:.2g}, d={}, '
-          't_opt={:.3f}s, t_bound={:.3f}s'.format(
-              args.starts, float(args.n), d, args.t_opt, args.t_bound))
-    for c, s in [(8, 1), (8, 2), (8, 4), (4, 2), (2, 4), (4, 4), (2, 8)]:
-        if args.starts % c:
-            continue
-        row = _collective_accounting_2d(args.n, d, args.starts, c, s,
-                                        tail_len, pack_len, args.t_opt,
-                                        args.t_bound)
-        rows.append(row)
-        print('  (C={}, S={}) N={:2d} chips: collectives {:7.1f} kB '
-              '({:.2g} s) | predicted efficiency vs linear {:6.1%}'.format(
-                  c, s, c * s, row['collective_bytes'] / 1e3,
-                  row['predicted_collective_seconds'],
-                  row['predicted_efficiency_vs_linear']))
-    results = {}
-    if args.json and os.path.exists(args.json):
-        with open(args.json) as f:
-            results = json.load(f)
-    results.setdefault('tiers', {})['multistart2d_accounting'] = dict(
-        n=args.n, d=d, n_starts=args.starts, t_opt_s=args.t_opt,
-        t_bound_s=args.t_bound, placements=rows)
-    if args.json:
-        with open(args.json, 'w') as f:
-            json.dump(results, f, indent=1)
-        print('wrote', args.json)
-    return results
+    return dict(local_bytes=local_bytes, collective_bytes=coll_bytes)
 
 
 def main():
@@ -261,28 +120,8 @@ def main():
                    help='record tier 2b: the 2-D fused multistart timed '
                         'across a real 2-process Gloo boundary vs '
                         'single-process on the same (2, 2) mesh shape')
-    p.add_argument('--tpu-anchor', action='store_true',
-                   help='record tier 4 on the real chip instead of the '
-                            'virtual-pool tiers')
-    p.add_argument('--accounting-2d', action='store_true',
-                   help='record tier 3b: the static collective/efficiency '
-                        'accounting for the 2-D (chain x sample) fused '
-                        'multistart layout')
-    p.add_argument('--starts', type=int, default=8,
-                   help='K for the --accounting-2d sweep')
-    p.add_argument('--t-opt', type=float, default=0.064,
-                   help='measured single-chip optimizer-stage seconds '
-                        '(bench.py: 10k-iteration KLVI scan)')
-    p.add_argument('--t-bound', type=float, default=0.110,
-                   help='measured single-chip bound+PSIS pass seconds '
-                        '(bench.py: 2.5e6 samples)')
     p.add_argument('--json', help='write results to this path')
     args = p.parse_args()
-
-    if args.accounting_2d:
-        return _accounting_2d(args)
-    if args.tpu_anchor:
-        return _tpu_anchor(args)
 
     os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
                                + ' --xla_force_host_platform_device_count={}'
@@ -339,14 +178,12 @@ def main():
                                   _tail_len(n, 1.0))
     results['tiers']['collective_accounting'] = acct
     print('collective payload: {:.1f} kB moved vs {:.1f} MB local per '
-          'pass -> predicted ICI collective fraction {:.2%}'.format(
-              acct['collective_bytes'] / 1e3, acct['local_bytes'] / 1e6,
-              acct['predicted_collective_fraction']))
+          'pass'.format(acct['collective_bytes'] / 1e3,
+                        acct['local_bytes'] / 1e6))
 
     # tier 2b: the flagship 2-D fused multistart (2 starts x n-sample
     # sharded bounds on a 2x2 mesh) timed across the real process boundary
-    # AND single-process on the same mesh shape — the program tier 3b's
-    # accounting models
+    # AND single-process on the same mesh shape
     if args.two_process_multistart:
         from viabel_tpu import black_box_klvi, validated_vi_multistart
         # chain size = process count (each rank owns 2 devices and one
@@ -407,7 +244,6 @@ def main():
 
     if args.json:
         # merge into an existing file so one JSON carries all tiers
-        # (e.g. a previously recorded --tpu-anchor tier 4)
         if os.path.exists(args.json):
             with open(args.json) as f:
                 prior = json.load(f)

@@ -2,8 +2,8 @@
 
 Each OS process owns half the virtual CPU devices; the shipped sharded
 programs run over the global mesh with collectives crossing the process
-boundary over Gloo — the same program structure that rides ICI/DCN on a
-pod slice.  Prints one JSON line with replicated results and steady-state
+boundary over Gloo — the same program structure that spans hosts in a
+multi-host run.  Prints one JSON line with replicated results and steady-state
 timings.
 
 Modes (argv[6], default ``bounds``):

@@ -10,11 +10,10 @@ the fit against the truth.
 
 What the defaults do for you at this scale (benchmarks/DIM_SCALING.md):
 
-* `unroll='auto'` resolves to the measured-best scan unroll for P = 5,150
-  (8: +13-17 % over the small-d setting);
-* `n_mc_samples=800` here, not the protocol default 100 — the step is
-  MXU-occupancy-bound, so 8x the gradient samples cost ~7-9 % step time
-  and cut gradient variance ~8x (the recorded n_mc sweep);
+* `unroll='auto'` resolves to the measured-best scan unroll
+  (`optimizers.resolve_unroll`);
+* `n_mc_samples=800` here, not the protocol default 100 — 8x the gradient
+  samples cut gradient variance ~8x;
 * `return_history=False` semantics inside `validated_vi` keep optimizer
   memory O(P) — the (n_iters, P) history is never materialized.
 

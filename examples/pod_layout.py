@@ -1,13 +1,13 @@
 """Multi-device / multi-host recipe: the production mesh layouts.
 
 The reference is single-process numpy (SURVEY.md section 2.4); this
-example is the pod playbook for `viabel_tpu.parallel` — runnable as-is on
-a virtual CPU pool (``--devices 8``, the default here), on a real
-multi-chip host, or per-process on a pod slice with ``--distributed``.
+example is the multi-device playbook for `viabel_tpu.parallel` — runnable
+as-is on a virtual CPU pool (``--devices 8``, the default here), on a
+multi-GPU host, or one process per host with ``--distributed``.
 
-Layouts demonstrated (benchmarks/SCALING.md tier 3b records the placement
-guidance: starts/rates on `chain` first — embarrassingly parallel; spill
-onto `sample` only when K < N and the bound stage dominates):
+Layouts demonstrated (placement guidance: starts/rates on `chain` first —
+embarrassingly parallel; spill onto `sample` only when K < N and the bound
+stage dominates):
 
 1. sample-sharded bound + PSIS pass (`sharded_all_bounds` +
    `psislw_sharded`) — the 2.5e6-sample estimator on an N-way mesh;
@@ -17,10 +17,9 @@ onto `sample` only when K < N and the bound stage dominates):
 3. mesh-sharded IA chains (`rmsprop_IA_optimize_with_rhat(mesh=)`) and
    HMC ground-truth chains (`hmc_sample(mesh=)`).
 
-On a pod slice, run one copy of this script per host with
+On several GPU hosts, run one copy of this script per host with
 ``--distributed`` (coordinator address via ``--coord host:port``, rank
-via ``--rank``/``--nprocs``; on Cloud TPU the discovery is automatic and
-the flags can be omitted): `jax.devices()` then spans the slice, the same
+via ``--rank``/``--nprocs``): `jax.devices()` then spans every host, the same
 meshes form globally, and every host post-pass in the library fetches
 through `parallel.fetch_global` — `tests/test_distributed.py` pins rank
 agreement bit-for-bit over a real 2-process Gloo boundary.
@@ -40,11 +39,11 @@ def main(argv=None):
     p.add_argument('--accel', action='store_true',
                    help='use the attached accelerator pool as-is instead '
                         'of the virtual CPU pool (pick this on a real '
-                        'multi-chip host)')
+                        'multi-GPU host)')
     p.add_argument('--distributed', action='store_true',
                    help='call initialize_distributed() first (one process '
-                        'per host of a pod slice; implies --accel)')
-    p.add_argument('--coord', help='coordinator host:port (manual setups)')
+                        'per host; implies --accel)')
+    p.add_argument('--coord', help='coordinator host:port')
     p.add_argument('--rank', type=int)
     p.add_argument('--nprocs', type=int)
     p.add_argument('--quick', action='store_true',

@@ -325,7 +325,7 @@ def test_fit_busy_rejected_not_queued():
 
 def test_log_prob_bucket_clamped_to_limit():
     """The padded /log_prob batch never exceeds max_bound_samples even when
-    the power-of-two bucket would (ADVICE r2: n=600 would pad to 1024)."""
+    the power-of-two bucket would (n=600 would pad to 1024)."""
     service = _make_service(max_bound_samples=1000)
     x = np.random.RandomState(0).randn(600, 2)
     lp = service.log_prob(x)
@@ -359,7 +359,7 @@ def test_sample_bucket_clamped_to_limit():
 def test_param_from_checkpoint_kinds(tmp_path):
     """`serve --param` disambiguates checkpoint kinds: the multichain IA
     checkpoint's (n_chains, P) 'params' entry must NOT be tail-averaged by
-    iteration index (ADVICE r2: that yields an all-NaN served parameter)."""
+    iteration index (that yields an all-NaN served parameter)."""
     from viabel_tpu.serve import _param_from_checkpoint
     from viabel_tpu import (black_box_klvi,
                             mean_field_gaussian_variational_family,

@@ -71,7 +71,7 @@ def test_chol_densities():
 def test_chol_densities_ill_conditioned_factor():
     """Bound the accuracy loss of the explicit-triangular-inverse path on a
     badly scaled Cholesky factor (distributions.py replaces the per-sample
-    TriangularSolve with inv(L) @ dev for TPU precision/throughput; a factor
+    TriangularSolve with inv(L) @ dev for precision control; a factor
     whose diagonal spans 1e-6..1e2 — cond(L) ~ 1e8 — is far outside what a
     variational fit produces).  The oracle is the exact per-sample
     triangular solve in f64 — NOT scipy's density, whose eigh pseudo-inverse
@@ -135,7 +135,7 @@ def test_multivariate_t_logpdf_rank_deficient():
 
 def test_student_t_sample_distribution():
     """The rejection-free integer-df Student-t sampler
-    (distributions.student_t_sample; benchmarks/PALLAS_DECISION.md) is
+    (distributions.student_t_sample) is
     exact: KS tests against scipy's t CDF pass across df, including the
     odd-df (Gamma(1/2) = z^2/2) branch and the non-integer fallback."""
     from viabel_tpu.distributions import student_t_sample

@@ -365,36 +365,97 @@ def test_native_backend_in_full_vi_loop():
         np.asarray(values)[:20])
 
 
-def test_trace_device_time_parses_perfetto_json(tmp_path):
-    """trace_device_time sums only device-side XLA-module durations from a
-    profiler capture (host tracks and non-module threads excluded)."""
+def _write_trace(root, events):
     import gzip
     import json
+    d = root / 'plugins' / 'profile' / 'run1'
+    d.mkdir(parents=True)
+    with gzip.open(str(d / 'host.trace.json.gz'), 'wt') as f:
+        json.dump({'traceEvents': events}, f)
+
+
+def test_trace_device_time_parses_perfetto_json(tmp_path):
+    """trace_device_time reads a GPU capture's layout (one process per
+    device, one thread per CUDA stream): busy time is the union of the
+    device's kernel/copy intervals — overlap across streams counts once —
+    and host events are excluded."""
     from viabel_tpu.utils import trace_device_time
     events = [
-        {'ph': 'M', 'pid': 3, 'name': 'process_name',
-         'args': {'name': '/device:TPU:0'}},
-        {'ph': 'M', 'pid': 3, 'tid': 2, 'name': 'thread_name',
-         'args': {'name': 'XLA Modules'}},
-        {'ph': 'M', 'pid': 3, 'tid': 3, 'name': 'thread_name',
-         'args': {'name': 'XLA Ops'}},
+        {'ph': 'M', 'pid': 1, 'name': 'process_name',
+         'args': {'name': '/device:GPU:0'}},
+        {'ph': 'M', 'pid': 1, 'tid': 13, 'name': 'thread_name',
+         'args': {'name': 'Stream #13(MemcpyD2D,Compute)'}},
+        {'ph': 'M', 'pid': 1, 'tid': 14, 'name': 'thread_name',
+         'args': {'name': 'Stream #14(MemcpyH2D)'}},
         {'ph': 'M', 'pid': 701, 'name': 'process_name',
          'args': {'name': '/host:CPU'}},
         {'ph': 'M', 'pid': 701, 'tid': 9, 'name': 'thread_name',
-         'args': {'name': 'XLA Modules'}},
-        # 2 module executions on device: 5 + 7 us
-        {'ph': 'X', 'pid': 3, 'tid': 2, 'name': 'jit_f', 'dur': 5.0},
-        {'ph': 'X', 'pid': 3, 'tid': 2, 'name': 'jit_g', 'dur': 7.0},
-        # op-level and host events must not be double counted
-        {'ph': 'X', 'pid': 3, 'tid': 3, 'name': 'fusion', 'dur': 4.0},
-        {'ph': 'X', 'pid': 701, 'tid': 9, 'name': 'host_mod', 'dur': 100.0},
+         'args': {'name': 'python'}},
+        # compute stream: kernels at [100, 105) and [110, 117)
+        {'ph': 'X', 'pid': 1, 'tid': 13, 'ts': 100.0, 'dur': 5.0,
+         'name': 'loop_add_fusion'},
+        {'ph': 'X', 'pid': 1, 'tid': 13, 'ts': 110.0, 'dur': 7.0,
+         'name': 'input_reduce_fusion'},
+        # a copy overlapping the first kernel by 2 us: adds 1 us
+        {'ph': 'X', 'pid': 1, 'tid': 14, 'ts': 103.0, 'dur': 3.0,
+         'name': 'MemcpyH2D'},
+        # host events never count
+        {'ph': 'X', 'pid': 701, 'tid': 9, 'ts': 90.0, 'dur': 100.0,
+         'name': 'python'},
     ]
-    d = tmp_path / 'plugins' / 'profile' / 'run1'
-    d.mkdir(parents=True)
-    with gzip.open(str(d / 'vm.trace.json.gz'), 'wt') as f:
-        json.dump({'traceEvents': events}, f)
-    assert trace_device_time(str(tmp_path)) == 12.0 / 1e6
-    assert trace_device_time(str(tmp_path / 'nothing')) is None
+    _write_trace(tmp_path, events)
+    assert trace_device_time(str(tmp_path)) == pytest.approx(13.0 / 1e6)
+
+
+def test_trace_device_time_reads_recorded_h100_trace():
+    """A capture recorded on an H100 (NVIDIA H100 80GB HBM3, 700 W) around
+    one 2.5e6-sample eight-schools draw+score pass, reduced to its device
+    process plus one host event: 2.798 ms of kernels and copies on two
+    streams, whose small overlap counts once."""
+    from viabel_tpu.utils import trace_device_time
+    here = os.path.dirname(os.path.abspath(__file__))
+    busy = trace_device_time(os.path.join(here, 'data', 'h100_trace'))
+    assert busy == pytest.approx(2797.656e-6, rel=1e-6)
+
+
+def test_trace_device_time_raises_without_device_events(tmp_path):
+    """A capture with host events only (a CPU-backend trace) or no capture
+    at all is an error, not a zero device time."""
+    from viabel_tpu.utils import trace_device_time
+    _write_trace(tmp_path, [
+        {'ph': 'M', 'pid': 701, 'name': 'process_name',
+         'args': {'name': '/host:CPU'}},
+        {'ph': 'X', 'pid': 701, 'tid': 9, 'ts': 0.0, 'dur': 10.0,
+         'name': 'python'}])
+    with pytest.raises(ValueError, match='no device events'):
+        trace_device_time(str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        trace_device_time(str(tmp_path / 'nothing'))
+
+
+def test_native_library_keyed_on_sources_and_flags(tmp_path, monkeypatch):
+    """The native library's file name is a function of the source text,
+    the compiler flags and the architecture: editing a source or changing
+    a flag names a different file, so a stale or foreign build is never
+    loaded; the build directory is git-ignored."""
+    import viabel_tpu.native as nat
+    srcs = []
+    for src in nat._SRCS:
+        dst = tmp_path / os.path.basename(src)
+        dst.write_bytes(open(src, 'rb').read())
+        srcs.append(str(dst))
+    monkeypatch.setattr(nat, '_SRCS', srcs)
+    base = nat._library_path(nat._FLAGS)
+    assert base == nat._library_path(tuple(nat._FLAGS))
+    assert os.path.dirname(base) == nat._BUILD_DIR
+    assert nat._library_path(nat._FLAGS + ('-fopenmp',)) != base
+    with open(srcs[0], 'a') as f:
+        f.write('\n// edited\n')
+    assert nat._library_path(nat._FLAGS) != base
+    assert '-march=native' not in nat._FLAGS
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, '.gitignore')) as f:
+        assert 'viabel_tpu/native/build/' in f.read().split()
 
 
 def test_native_robust_regression_rejects_partial_data():

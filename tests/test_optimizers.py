@@ -433,25 +433,23 @@ def test_adagrad_no_history_mode():
 
 
 def test_resolve_unroll():
-    """unroll='auto' resolves by parameter size (DIM_SCALING.md: unroll=8
-    is the measured-best at occupancy-bound large P, 4 at small P);
+    """unroll='auto' resolves to the one measured-best constant (8 on the
+    H100 at both P = 20 and P = 5,150; benchmarks/unroll_sweep.py);
     explicit ints pass through so bit-identity callers (unroll=1) are
     never silently changed."""
-    from viabel_tpu.optimizers import _AUTO_UNROLL_LARGE_P, resolve_unroll
-    assert resolve_unroll('auto', 4) == 4
-    assert resolve_unroll('auto', _AUTO_UNROLL_LARGE_P - 1) == 4
-    assert resolve_unroll('auto', _AUTO_UNROLL_LARGE_P) == 8
-    assert resolve_unroll('auto', 45450) == 8  # full-rank d=300
-    assert resolve_unroll(1, 45450) == 1
-    assert resolve_unroll(16, 4) == 16
+    from viabel_tpu.optimizers import _AUTO_UNROLL, resolve_unroll
+    assert _AUTO_UNROLL == 8
+    assert resolve_unroll('auto') == _AUTO_UNROLL
+    assert resolve_unroll(1) == 1
+    assert resolve_unroll(16) == 16
     with pytest.raises(ValueError, match="positive int or 'auto'"):
-        resolve_unroll('fast', 4)
+        resolve_unroll('fast')
     with pytest.raises(ValueError, match='>= 1'):
-        resolve_unroll(0, 4)
+        resolve_unroll(0)
 
 
 def test_adagrad_auto_unroll_matches_explicit_small_p():
-    """At small P the default unroll='auto' is exactly unroll=4 — same
+    """At small P the default unroll='auto' is exactly unroll=8 — same
     resolved static argument, so it hits the SAME compiled program and
     the trajectories are bitwise identical."""
     from viabel_tpu.models import funnel_model
@@ -461,6 +459,6 @@ def test_adagrad_auto_unroll_matches_explicit_small_p():
     init = jnp.zeros(4, dtype=jnp.float64)
     kw = dict(key=jax.random.PRNGKey(5), learning_rate=.05)
     auto = adagrad_optimize(200, obj, init, **kw)
-    four = adagrad_optimize(200, obj, init, unroll=4, **kw)
-    np.testing.assert_array_equal(np.asarray(auto[0]), np.asarray(four[0]))
-    np.testing.assert_array_equal(np.asarray(auto[2]), np.asarray(four[2]))
+    eight = adagrad_optimize(200, obj, init, unroll=8, **kw)
+    np.testing.assert_array_equal(np.asarray(auto[0]), np.asarray(eight[0]))
+    np.testing.assert_array_equal(np.asarray(auto[2]), np.asarray(eight[2]))

@@ -1,11 +1,13 @@
 """Pin the f32 matmul-precision discipline on the statistical paths.
 
-TPU matmuls default to reduced-precision MXU passes; that default measurably
-shifted the full-rank families' converged optima (robust-regression full-rank
-t(100): d2 6.0e-4 -> 3.1e-3; benchmarks/KHAT_NOISE.md).  The fix pins
-``precision=HIGHEST`` on every statistically load-bearing product.  These
-tests assert the pins at the jaxpr level so a refactor that silently drops
-one fails here rather than as a puzzling TPU-only statistics drift.
+An unpinned f32 matmul may run in reduced precision on an accelerator (TF32
+on the GPU, about three decimal digits); reduced precision measurably
+shifted the full-rank families' converged optima (robust-regression
+full-rank t(100): d2 6.0e-4 -> 3.1e-3; benchmarks/KHAT_NOISE.md).  The fix
+pins ``precision=HIGHEST`` on every statistically load-bearing product.
+These tests assert the pins at the jaxpr level so a refactor that silently
+drops one fails here rather than as a puzzling accelerator-only statistics
+drift; `chip_smoke.py` checks the resulting float32 accuracy on the GPU.
 """
 import jax
 import jax.numpy as jnp
@@ -76,8 +78,8 @@ def test_regression_likelihood_pinned():
 
 def test_log_density_has_no_triangular_solve_over_samples():
     """The Mahalanobis term is an explicit tiny-inverse + pinned matmul —
-    TriangularSolve over the sample axis both ignores precision controls
-    and serializes on TPU (distributions._chol_mahalanobis_and_logdet)."""
+    TriangularSolve over the sample axis need not honour precision
+    controls (distributions._chol_mahalanobis_and_logdet)."""
     chol = jnp.tril(jnp.ones((3, 3))) + 2 * jnp.eye(3)
     x = jnp.ones((64, 3))
 

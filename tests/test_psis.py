@@ -243,7 +243,7 @@ def test_psislw_sharded_f32_ties_match_unsharded():
 
 @pytest.mark.slow
 def test_ess_reff_closes_the_psis_loop():
-    """End-to-end ESS -> Reff -> PSIS wiring (VERDICT r2 item 6): MCMC
+    """End-to-end ESS -> Reff -> PSIS wiring: MCMC
     draws from `viabel_tpu.mcmc` give ``Reff = effective_sample_size /
     (n_chains * n_iters)``, which feeds `psisloo`'s tail sizing
     (reference: notebooks/psis.py:112-155, the Reff parameter's purpose).

@@ -1,14 +1,13 @@
-"""viabel-tpu: TPU-native validated variational inference.
+"""viabel-tpu: validated variational inference in JAX.
 
 A brand-new JAX/XLA framework with the capabilities of the reference
 `viabel` package (Huggins et al., "Validated Variational Inference via
 Practical Posterior Error Bounds", AISTATS 2020): KLVI/CHIVI black-box
 variational inference with reparameterization gradients, validated posterior
 error bounds (alpha-divergence, Wasserstein, moment errors), Pareto-smoothed
-importance sampling, and R-hat-gated iterate averaging — redesigned TPU-first
-with compiled `lax.scan` optimization loops, rejection-free samplers, and
-mesh-sharded Monte Carlo estimation (custom Pallas kernels were evaluated
-and retired by measurement — see benchmarks/PALLAS_DECISION.md).
+importance sampling, and R-hat-gated iterate averaging — redesigned for
+accelerators with compiled `lax.scan` optimization loops, rejection-free
+samplers, and mesh-sharded Monte Carlo estimation, all in plain JAX.
 
 Like the reference, the bounds core is the default API surface
 (reference: viabel/__init__.py:1 exports only the bounds); everything else is
@@ -71,7 +70,7 @@ __all__ = [
     # in-repo MCMC ground truth (replaces the reference's external Stan NUTS
     # anchors; notebooks/eight-schools.ipynb cells 10-16)
     'hmc_sample', 'hmc_ground_truth',
-    # single-dispatch fused pipeline (TPU-native; no reference counterpart)
+    # single-dispatch fused pipeline (no reference counterpart)
     'validated_vi', 'validated_vi_multistart', 'validated_vi_sweep',
     # constrained-parameter transforms (the Stan unconstraining layer)
     'ParameterTransforms', 'identity_transform', 'positive_transform',

@@ -290,7 +290,9 @@ def adagrad_optimize_resumable(n_iters, objective_and_grad, init_param, *,
     contract as
     `adagrad_optimize`; for exact trajectory correspondence with the
     whole-run driver pass ``unroll=1`` to `adagrad_optimize` (its default
-    unroll=4 can differ from this plain scan in the low bits).
+    ``unroll='auto'`` can differ from this plain scan in the low bits).
+    Bit-identity of an interrupted-and-resumed run with the whole run is
+    checked on the GPU by `chip_smoke.py` (phase 5).
 
     ``return_history=False`` is the large-P mode (mirroring
     `adagrad_optimize`'s): the (n_iters, P) iterate history is neither

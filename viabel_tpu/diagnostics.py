@@ -1,6 +1,6 @@
 """Convergence diagnostics and iterate averaging.
 
-TPU-native rebuild of the reference diagnostics module
+JAX rebuild of the reference diagnostics module
 (reference: viabel/functions.py:8-77, 139-150).  These operate on small
 (n_chains, n_iters, P) iterate histories produced by the scan-based
 optimizers and run once per optimization as a host-side post-pass — they

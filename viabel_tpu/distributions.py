@@ -1,6 +1,6 @@
 """Log-density primitives for the variational families.
 
-TPU-native rebuild of the reference distribution helpers
+JAX rebuild of the reference distribution helpers
 (reference: viabel/_distributions.py:8-38 and the autograd.scipy usages in
 viabel/vb.py:63-65, 158-162).  Everything here is pure `jax.numpy`, shape
 polymorphic over a leading sample batch, differentiable, and jit/vmap/pjit
@@ -9,8 +9,8 @@ friendly.
 Design notes: where the reference multivariate-t logpdf takes a dense
 covariance and eigendecomposes it per call
 (reference: viabel/_distributions.py:27-38), the hot paths here take a
-Cholesky factor so the Mahalanobis term is a triangular solve — an MXU-friendly
-matmul-shaped op — and the log-determinant is a diagonal sum.  An eigh-based
+Cholesky factor so the Mahalanobis term is a tiny triangular inverse and one
+matmul, and the log-determinant is a diagonal sum.  An eigh-based
 general-covariance entry point is kept for parity.
 """
 import math
@@ -89,11 +89,10 @@ def student_t_sample(key, df, shape, dtype=jnp.float32):
     * odd df:   ``chi2_df = 2 Gamma((df-1)/2, 1) + z1^2``
       (``Gamma(1/2, 1) = z^2 / 2``).
 
-    `jax.random.t`'s gamma rejection sampler costs ~56 ms per 1e6 x 10
-    block on a v5e chip (its accept/reject loop defeats the VPU); this
-    construction is pure vectorized uniforms + logs, ~10x faster, and
-    exact — same distribution, different draws for the same key.  Falls
-    back to `jax.random.t` for non-integer or very large df.
+    `jax.random.t` draws gammas by rejection, a data-dependent loop; this
+    construction is pure vectorized uniforms + logs with a fixed amount of
+    work, and exact — same distribution, different draws for the same key.
+    Falls back to `jax.random.t` for non-integer or very large df.
     """
     df_int = int(df)
     if df != df_int or not 1 <= df_int <= _MAX_EXACT_T_DF:
@@ -146,12 +145,12 @@ def _chol_mahalanobis_and_logdet(x, mean, chol):
     dev = x - mean
     # z = L^{-1} dev^T, batched over samples — computed as an explicit
     # (d, d) triangular inverse followed by one (d, n) matmul instead of a
-    # TriangularSolve over n columns.  Two TPU reasons: (1) TriangularSolve
-    # is a single XLA primitive whose internal blocked matmuls ignore JAX
-    # precision controls, while the matmul here is pinned to full f32 (this
-    # log-density is differentiated by CHIVI and sets the PSIS log-weights;
-    # same defect class as families._mm); (2) the solve serializes over the
-    # sample axis on TPU whereas the matmul rides the MXU.  The tiny d x d
+    # TriangularSolve over n columns.  Two reasons: (1) TriangularSolve is a
+    # single XLA primitive whose internal blocked matmuls need not honour
+    # JAX precision controls, while the matmul here is pinned to full f32
+    # (this log-density is differentiated by CHIVI and sets the PSIS
+    # log-weights; same defect class as families._mm); (2) one batched
+    # matmul over the sample axis instead of a solve.  The tiny d x d
     # inverse itself stays a forward substitution; fine for the
     # well-conditioned Cholesky factors variational fits produce.
     eye = jnp.eye(chol.shape[-1], dtype=chol.dtype)

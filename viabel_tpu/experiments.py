@@ -1,6 +1,6 @@
 """Experiment harness: optimize, check accuracy, bound, PSIS-correct.
 
-TPU-native rebuild of the reference harness
+JAX rebuild of the reference harness
 (reference: notebooks/experiments.py:1-210 + notebooks/utils.py).  The same
 workflow — KLVI then CHIVI (reusing KLVI's ELBO as CHIVI's log-normalizer
 bound), accuracy checks against ground truth, large-sample bound estimation
@@ -198,7 +198,7 @@ def improve_with_psis_sharded(log_density, var_family, var_param, n_samples,
     _, lw, samples = sharded_all_bounds(
         log_density, var_family, var_param, n_samples, key, mesh,
         # both closed-form moments in one cached program + one fetch (an
-        # eager per-order lambda would pay a dispatch floor per call)
+        # eager per-order lambda would pay a dispatch and a fetch per call)
         moment_bound_fn=family_moment_bounds(var_family,
                                              jnp.asarray(var_param)),
         return_log_weights=True, return_samples=True)

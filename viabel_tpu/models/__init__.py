@@ -1,6 +1,6 @@
 """JAX log-density model zoo.
 
-TPU-native replacement for the reference's Stan C++ model backend
+JAX replacement for the reference's Stan C++ model backend
 (reference: viabel/vb.py:301-321 bridges pystan `fit.log_prob` /
 `grad_log_prob` into autograd with a per-sample host loop).  Every model here
 is a pure `jax.numpy` log density over a batch of *unconstrained* parameters,

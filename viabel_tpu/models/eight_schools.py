@@ -1,6 +1,6 @@
 """Eight-schools hierarchical models, centered and non-centered.
 
-TPU-native equivalents of the reference Stan programs
+JAX equivalents of the reference Stan programs
 (reference: notebooks/eight_schools_cp.stan:1-18 and
 eight_schools_ncp.stan:1-24) evaluated through pystan's `fit.log_prob` on the
 unconstrained scale (reference: viabel/vb.py:314-321).  Stan reparameterizes

@@ -2,7 +2,7 @@
 
 The reference wraps a compiled Stan model's `log_prob` / `grad_log_prob`
 into autograd via a custom-VJP primitive applied per-sample with
-`np.apply_along_axis` (reference: viabel/vb.py:301-321).  The TPU-native
+`np.apply_along_axis` (reference: viabel/vb.py:301-321).  The JAX
 model zoo removes the need for this on the benchmark workloads, but the
 capability — plugging an arbitrary external evaluator (a Stan model, a C++
 library, a legacy numpy density) into the JAX compute path — is preserved

@@ -2,8 +2,8 @@
 
 The reference's only native component is the Stan C++ model backend reached
 through `make_stan_log_density` (reference: viabel/vb.py:314-321; SURVEY.md
-section 2.1).  This package demonstrates that pathway in the TPU framework
-with a real ahead-of-time-compiled C++ evaluator: the eight-schools centered
+section 2.1).  This package demonstrates that pathway with a real
+ahead-of-time-compiled C++ evaluator: the eight-schools centered
 log posterior + analytic gradient, built with g++ into a shared library,
 loaded over ctypes, and bridged into JAX (jit/grad-compatible) through
 `make_callback_log_density`.
@@ -14,7 +14,9 @@ exists for models that can only be evaluated by external compiled code —
 the exact situation the reference's Stan bridge serves.
 """
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -24,27 +26,54 @@ __all__ = ['build_native_library', 'native_eight_schools_cp_log_density',
 
 _SRCS = [os.path.join(os.path.dirname(__file__), f)
          for f in ('eight_schools.cpp', 'regression.cpp')]
-_LIB = os.path.join(os.path.dirname(__file__), 'libviabel_native.so')
+# git-ignored; libraries are named by `_library_path`'s key
+_BUILD_DIR = os.path.join(os.path.dirname(__file__), 'build')
+# portable code: no -march=native, so the key below fully describes it
+_FLAGS = ('-O3', '-shared', '-fPIC')
+
+
+def _library_path(flags):
+    """Where the library built from today's sources with `flags` lives.
+
+    The file name carries a hash of the sources, the flags and the CPU
+    architecture, so a library left over from other sources, other flags
+    or another kind of machine is never found, let alone loaded."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, 'rb') as f:
+            h.update(f.read())
+    h.update('\0'.join(flags).encode())
+    h.update(platform.machine().encode())
+    return os.path.join(_BUILD_DIR,
+                        'libviabel_native-{}.so'.format(h.hexdigest()[:16]))
 
 
 def build_native_library(force=False):
-    """Compile the native library with g++ (cached).  Returns the .so path
-    or raises RuntimeError if no toolchain is available."""
-    if os.path.exists(_LIB) and not force and \
-            all(os.path.getmtime(_LIB) >= os.path.getmtime(s)
-                for s in _SRCS):
-        return _LIB
-    base = ['g++', '-O3', '-march=native', '-shared', '-fPIC'] + _SRCS + \
-        ['-o', _LIB]
-    try:  # OpenMP batch parallelism when the toolchain supports it
-        subprocess.run(base + ['-fopenmp'], check=True, capture_output=True)
-    except (OSError, subprocess.CalledProcessError):
+    """Compile the native library with g++ (cached by `_library_path`).
+    Returns the .so path or raises RuntimeError if no toolchain is
+    available.  OpenMP batch parallelism is used when the toolchain
+    supports it."""
+    variants = [_FLAGS + ('-fopenmp',), _FLAGS]
+    if not force:
+        for flags in variants:
+            if os.path.exists(_library_path(flags)):
+                return _library_path(flags)
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    err = None
+    for flags in variants:
+        lib = _library_path(flags)
+        # build under a private name, then rename: concurrent builders
+        # never load a half-written file
+        tmp = '{}.{}.tmp'.format(lib, os.getpid())
         try:
-            subprocess.run(base, check=True, capture_output=True)
+            subprocess.run(['g++', *flags, *_SRCS, '-o', tmp], check=True,
+                           capture_output=True)
         except (OSError, subprocess.CalledProcessError) as e:
-            raise RuntimeError('failed to build native library: {}'
-                               .format(e))
-    return _LIB
+            err = e
+            continue
+        os.replace(tmp, lib)
+        return lib
+    raise RuntimeError('failed to build native library: {}'.format(err))
 
 
 def _load():

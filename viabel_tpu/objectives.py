@@ -1,6 +1,6 @@
 """Variational objectives as pure, differentiable functions.
 
-TPU-native rebuild of the reference objectives
+JAX rebuild of the reference objectives
 (reference: viabel/vb.py:236-298).  Each factory returns a callable
 
     objective_and_grad(var_param, key) -> (value, grad[, log_norm])
@@ -33,7 +33,7 @@ __all__ = [
 def vectorize_log_density(log_density):
     """Lift a single-point log density ``f(x: (d,)) -> scalar`` to batches.
 
-    TPU-native counterpart of the reference's `np.apply_along_axis` host loop
+    JAX counterpart of the reference's `np.apply_along_axis` host loop
     (reference: viabel/vb.py:301-305): `jax.vmap` vectorizes the density once
     at trace time so XLA compiles a single batched kernel.
     """

@@ -2,7 +2,7 @@
 
 The reference has no parallelism at all — its `n_optimisers` "chains" run
 sequentially in a Python loop and every Monte Carlo estimate is a single
-numpy pass (SURVEY.md section 2.4).  This package supplies the TPU-native
+numpy pass (SURVEY.md section 2.4).  This package supplies the
 scaling story:
 
 * `make_mesh` — build a ``(chain, sample)`` `jax.sharding.Mesh` over the

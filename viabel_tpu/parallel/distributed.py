@@ -1,10 +1,12 @@
 """Multi-host initialization.
 
-On a TPU pod slice, call `initialize_distributed()` once per host before
-any JAX operation; the mesh builders in `viabel_tpu.parallel.mesh` then see
-every chip in the slice via `jax.devices()`, and the shard_map estimators
-run unchanged with intra-slice reductions over ICI and cross-slice over DCN
-(SURVEY.md section 5 "Distributed communication backend").
+On a cluster of GPU hosts, run one process per host and call
+`initialize_distributed(coordinator_address, num_processes, process_id)`
+once in each, before any JAX operation; the mesh builders in
+`viabel_tpu.parallel.mesh` then see every GPU of every host via
+`jax.devices()`, and the shard_map estimators run unchanged, with XLA
+handing the collectives to NCCL (SURVEY.md section 5 "Distributed
+communication backend").
 
 This module is a thin, documented wrapper because JAX's collectives need no
 hand-written communication layer — the work is in the sharding annotations,
@@ -22,9 +24,11 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Initialize `jax.distributed` for a multi-host run.
 
-    With no arguments, relies on the TPU environment's automatic discovery
-    (the normal case on Cloud TPU pods); arguments are forwarded for manual
-    setups.  Safe to call once per process, before any backend use.
+    `coordinator_address` is ``host:port`` of process 0, reachable from
+    every host; `num_processes` is the number of hosts (one process each)
+    and `process_id` this host's index.  A plain GPU host has no cluster
+    environment for JAX to discover these from, so pass all three.  Call
+    once per process, before any backend use.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,6 +1,6 @@
 """Pareto-smoothed importance sampling (PSIS), jit-compatible.
 
-TPU-native rebuild of the vendored Vehtari/Sivula PSIS module
+JAX rebuild of the vendored Vehtari/Sivula PSIS module
 (reference: notebooks/psis.py:112-395; algorithm from Vehtari, Gelman &
 Gabry 2017, arXiv:1507.02646).  Functionally equivalent to the reference:
 `psislw` splits log-weights into a body and right tail above the
@@ -10,8 +10,8 @@ quadrature (`gpdfit`), replaces the tail with GPD order-statistic quantiles
 (`gpinv`), truncates at the max raw weight, renormalizes, and reports the
 tail index `khat` (estimates are unreliable when ``khat > 0.7``).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference's implementation is per-column Python with data-dependent tail
 sizes and in-place numpy surgery (reference: notebooks/psis.py:157-199).
 Under XLA everything must be static-shape, so:
@@ -56,8 +56,8 @@ def weighted_moments(samples, slw):
     """
     w = jnp.exp(slw - jnp.max(slw))
     w = w / jnp.sum(w)
-    # f32-pinned matmuls: see families._mm (TPU default precision
-    # shifts statistics); negligible cost at d <= ~30
+    # f32-pinned matmuls: see families._mm (an unpinned f32 matmul may
+    # run in TF32 on the GPU and shift statistics)
     hi = jax.lax.Precision.HIGHEST
     mean = jnp.matmul(w, samples, precision=hi)
     c = samples - mean[None, :]
@@ -143,9 +143,8 @@ def _psislw_1d(x, tail_len):
 
     Only the tail participates in the GPD fit and the rewrite, so the
     ``tail_len + 1`` largest weights are extracted with `lax.top_k` instead
-    of a full sort and only those positions are scattered back — measured
-    4.8x faster than the argsort formulation at n = 2.5e6 on a v5e chip
-    (32.8 ms -> 6.9 ms per pass).  Identical output in f64; in f32,
+    of a full sort and only those positions are scattered back.  Identical
+    output in f64; in f32,
     *tied* weight values at the tail boundary may be assigned quantiles in
     a different (equally valid) tie order than a stable sort would.
     """

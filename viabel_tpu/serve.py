@@ -172,10 +172,9 @@ class PosteriorService:
             # (each device draws/scores its own shard; psum'd statistics,
             # tail-only PSIS gather) — draw, score, stats, AND the PSIS
             # smooth run as ONE fused program (`sharded_bound_psis`: the
-            # two-program compose paid an extra dispatch and an HBM
-            # round-trip of the log-weights; benchmarks/
-            # sharded_overhead.py); builders are cached per
-            # (model, family, mesh, n), so repeated /bounds hit the
+            # two-program compose paid an extra dispatch and a device-
+            # memory round-trip of the log-weights); builders are cached
+            # per (model, family, mesh, n), so repeated /bounds hit the
             # executable cache
             from .parallel import sharded_bound_psis
             res, _slw, khat = sharded_bound_psis(
@@ -571,6 +570,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from .config import ExperimentConfig, build
+    from .utils import enable_compile_cache
+    enable_compile_cache()
 
     with open(args.config) as f:
         cfg = ExperimentConfig.from_json(f.read())

@@ -1,9 +1,10 @@
 from .timers import Timer, format_seconds
+from .cache import enable_compile_cache
 from .metrics import (ThroughputMeter, count_compilations,
                       profile_trace, trace_device_time)
 
 __all__ = ['Timer', 'format_seconds', 'ThroughputMeter', 'profile_trace',
-           'trace_device_time', 'count_compilations']
+           'trace_device_time', 'count_compilations', 'enable_compile_cache']
 
 
 def _hashable_log_density(log_density):

@@ -1,6 +1,6 @@
 """Wall-clock timing utilities.
 
-TPU-native counterpart of the reference harness timer
+JAX counterpart of the reference harness timer
 (reference: notebooks/utils.py:5-29).  Adds `block_until_ready`-aware timing
 so asynchronous XLA dispatch does not produce misleading numbers.
 """
